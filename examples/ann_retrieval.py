@@ -25,8 +25,7 @@ candidate set:
 Each row reports wall-clock latency for a 256-query batch, recall@10
 against the exact result, and index bytes. Numbers depend on the
 device this runs on (the reference's printed comparison is a CPU
-anecdote too); BASELINE.md records the honest single-chip TPU numbers
-at 1M x 128.
+anecdote too).
 
 Run: python examples/ann_retrieval.py
 """

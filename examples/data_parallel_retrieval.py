@@ -3,7 +3,7 @@
 Parity with examples/data_parallel_retrieval.py in the reference
 (basic_retrieval under keras.distribution.DataParallel): here the batch is
 sharded over a 1-D mesh via NamedSharding and jit handles replication of
-the parameters — the TPU-native data-parallel recipe.
+the parameters — the JAX data-parallel recipe.
 
 Run (8 virtual devices):
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \

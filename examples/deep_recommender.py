@@ -8,7 +8,7 @@ continuous features, crossed categoricals, TextVectorization of titles
 (:137-303); (2) multi-feature Query and Candidate towers (:487-630);
 (3) training on MovieLens; (4) recall@k eval with a candidate-embedding
 refresh before evaluation (:669-760). This walkthrough rebuilds every
-stage TPU-natively:
+stage:
 
   1. FEATURE ENGINEERING (`data.feature_engineering`):
        * `bucketize`           <- FeatureSpace.float_discretized
@@ -16,7 +16,7 @@ stage TPU-natively:
        * `TextVectorizer`      <- keras TextVectorization
      All transforms run on the host in numpy and emit integer ids; the
      device only ever does embedding lookups (integer gathers are the
-     TPU-friendly boundary — no strings or dynamic shapes cross jit).
+     jit-friendly boundary — no strings or dynamic shapes cross jit).
   2. TOWERS: the query tower embeds user id + bucketized age + the
      (user x age-bucket) cross; the candidate tower embeds item id +
      multi-hot genres (weighted mean combiner) + title-token mean. Each

@@ -6,7 +6,7 @@ keras-hub ReversibleEmbedding + PositionEmbedding + causal
 TransformerDecoder stack is trained with a contrastive BCE on aligned
 positive/negative sequences (:377-561), and next-item retrieval uses the
 tied item embedding as the candidate table. This walkthrough reproduces
-each of those stages TPU-natively:
+each of those stages:
 
   1. DATA  — sessions from `synthetic.markov_sessions` (no network in
      this environment): a noisy item-transition graph, so next-item
@@ -16,9 +16,7 @@ each of those stages TPU-natively:
      pads ML-1M histories (pad id 0 = mask).
   2. MODEL — `models.sasrec.SASRec`: tied item embedding (the same
      matrix embeds inputs and scores candidates — "reversible"), learned
-     position embedding, N pre-norm causal transformer blocks. On TPU
-     the attention auto-selects the Pallas flash kernel for T >= 512
-     (ops/flash_attention.py); at this toy T it uses the XLA path.
+     position embedding, N pre-norm causal transformer blocks.
   3. OBJECTIVE — for every position t, the model state must score the
      TRUE next item above a sampled negative: elementwise BCE on
      (positive, negative) logits, masked at padding (sasrec_loss).

@@ -2,7 +2,7 @@
 
 The reference leaves serving to Keras (`model.predict`; retrieval layers
 are attached at inference time, reference examples/basic_retrieval.py:
-260-269). On TPU, production serving wants more than predict(): fixed
+260-269). In production, serving wants more than predict(): fixed
 shapes with no retrace risk, artifacts a model-code-free server can
 load, and an HBM story for big tables. This example walks the four
 deployment shapes this framework provides, on a trained

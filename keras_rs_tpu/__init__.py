@@ -1,9 +1,8 @@
-"""keras_rs_tpu: a TPU-native recommender-systems framework in JAX.
+"""keras_rs_tpu: a recommender-systems framework in JAX.
 
-Built from scratch with the capability surface of keras-rs (see SURVEY.md),
-redesigned TPU-first: pytree modules, explicit jitted train steps, sharded
-embedding tables over a `jax.sharding.Mesh`, and Pallas kernels on the hot
-paths.
+Built from scratch with the capability surface of keras-rs (see SURVEY.md):
+pytree modules, explicit jitted train steps, and sharded embedding tables
+over a `jax.sharding.Mesh`.
 """
 
 import importlib
@@ -15,11 +14,11 @@ from keras_rs_tpu import ops
 from keras_rs_tpu import serving
 from keras_rs_tpu.version import __version__, version
 
-# Heavier subpackages (layers pulls the Pallas kernels; data/training pull
-# orbax and the native loaders) resolve lazily so `import keras_rs_tpu`
+# Heavier subpackages (layers, data and training pull the embedding engine
+# and the native loaders) resolve lazily so `import keras_rs_tpu`
 # stays light, while the reference's access pattern
 # (`keras_rs.layers.DistributedEmbedding`,
-# /root/reference/keras_rs/api/layers/__init__.py:8) still works verbatim
+# keras_rs/api/layers/__init__.py:8) still works verbatim
 # as `keras_rs_tpu.layers.DistributedEmbedding`.
 _LAZY_SUBPACKAGES = (
     "data",

@@ -6,7 +6,7 @@ see SURVEY.md L1). Here modules ARE pytrees: every `Module` subclass is
 automatically registered with `jax.tree_util`, its array-valued attributes
 (and sub-modules) are pytree leaves/subtrees, and everything else is static
 auxiliary data. This gives us `jax.jit`, `jax.grad`, `jax.vmap`, `shard_map`
-etc. over whole models for free — the idiomatic JAX/TPU design, instead of a
+etc. over whole models for free — the idiomatic JAX design, instead of a
 stateful layer graph.
 
 Conventions:

@@ -3,7 +3,7 @@
 The reference's deep_recommender example drives keras FeatureSpace:
 float_discretized / integer_categorical / string_categorical features,
 feature CROSSES with hashed crossing_dim, and TextVectorization
-(examples/deep_recommender.py:137-303). These are the TPU-native
+(examples/deep_recommender.py:137-303). These are the JAX
 equivalents — host-side numpy transforms producing integer ids that feed
 EmbedReduce / DistributedEmbedding (all device work stays integer
 lookups).

@@ -3,7 +3,7 @@
 Parity with the reference's `ThreadedDataLoader`
 (examples/ml_perf/main.py:35-105): N worker threads pull raw batches from
 a source iterator and run the (CPU-heavy) embedding `preprocess` while the
-TPU trains on earlier batches; results queue in a bounded buffer.
+device trains on earlier batches; results queue in a bounded buffer.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference accepts tf.RaggedTensor feature inputs and densifies them
 with synthesized 0/1 weights before embedding
 (keras_rs/src/layers/embedding/base_distributed_embedding.py:31-92). The
-TPU-native equivalent standardizes on the (values, row_lengths) pair and
+JAX equivalent standardizes on the (values, row_lengths) pair and
 converts to the padded-ids + weights form every kernel here consumes
 (SURVEY.md §7 hard part (e)): static shapes, no host-side raggedness past
 the input boundary.

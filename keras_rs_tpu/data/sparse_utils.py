@@ -5,7 +5,7 @@ distributed embedding preprocessing (keras_rs/src/layers/embedding/
 embed_reduce.py:36-87, base_distributed_embedding.py:31-92): the ids are
 densified (missing positions read row 0 of the table — bogus values),
 and a sparse `ones_like` mask zeroes those bogus embeddings and feeds
-the combiner divisors. The TPU-friendly equivalent of that contract is
+the combiner divisors. The jit-friendly equivalent of that contract is
 exactly our padded-dense-ids + 0/1-weights form, so the adapter below is
 lossless: `bcoo_densify` returns (dense ids with 0 fill, float mask with
 1 at stored positions).

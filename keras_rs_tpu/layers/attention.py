@@ -2,18 +2,10 @@
 
 The reference's sas_rec example composes keras-hub's ReversibleEmbedding,
 PositionEmbedding and TransformerDecoder (examples/sas_rec.py:393-430).
-TPU-native equivalents: pre-norm residual blocks, learned position
-embeddings, and causal multi-head self-attention with two interchangeable
-compute paths:
-
-  - XLA einsum pair (QK^T / softmax / PV): optimal for short sequences
-    (the reference's SASRec caps context at 200, examples/sas_rec.py:44).
-  - Pallas fused attention (ops/flash_attention.py): never materializes
-    the [B, H, T, T] probs tensor in HBM. Measured on TPU v5e vs the XLA
-    path (fwd+bwd): 1.6x at T=1024, 3.4x at T=4096, 30x at T=8192 —
-    long user-history contexts the reference cannot reach.
-
-`use_flash="auto"` picks the Pallas path on TPU when T >= FLASH_MIN_T.
+Equivalents here: pre-norm residual blocks, learned position
+embeddings, and causal multi-head self-attention as an XLA einsum pair
+(QK^T / softmax / PV). The [B, H, T, T] probabilities are materialized;
+the reference's SASRec caps context at 200 (examples/sas_rec.py:44).
 """
 
 from __future__ import annotations
@@ -97,12 +89,6 @@ class LayerNorm(Module):
         return (x - mean) * inv * self.scale + self.offset
 
 
-# Below this sequence length the plain XLA path wins (the Pallas kernel
-# pads head_dim to the 128 lane width; at short T the launch + padding
-# overhead dominates — measured crossover on v5e is between 256 and 1024).
-FLASH_MIN_T = 512
-
-
 class MultiHeadSelfAttention(Module):
     def __init__(
         self,
@@ -111,7 +97,6 @@ class MultiHeadSelfAttention(Module):
         *,
         key: jax.Array,
         dtype: Any = jnp.float32,
-        use_flash: bool | str = "auto",
     ) -> None:
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
@@ -123,14 +108,6 @@ class MultiHeadSelfAttention(Module):
         self.wo = init(ko, (dim, dim), dtype)
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
-        self.use_flash = use_flash
-
-    def _flash_enabled(self, T: int) -> bool:
-        if self.use_flash == "auto":
-            return (
-                jax.default_backend() == "tpu" and T >= FLASH_MIN_T
-            )
-        return bool(self.use_flash)
 
     def __call__(
         self,
@@ -147,17 +124,6 @@ class MultiHeadSelfAttention(Module):
             ).reshape(B, T, H, hd)
 
         q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
-
-        if self._flash_enabled(T):
-            from keras_rs_tpu.ops.flash_attention import flash_attention
-
-            out = flash_attention(
-                q, k, v, causal=causal, key_mask=padding_mask
-            ).reshape(B, T, D)
-            return jnp.matmul(
-                out, self.wo, preferred_element_type=x.dtype
-            )
-
         logits = jnp.einsum(
             "bqhd,bkhd->bhqk", q, k, preferred_element_type=jnp.float32
         ) / jnp.sqrt(jnp.asarray(hd, jnp.float32))

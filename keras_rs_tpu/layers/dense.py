@@ -61,7 +61,7 @@ class Dense(Module):
             regs["bias"] = breg
         self._regularizers = regs
         # Mixed precision: cast operands (typically to bfloat16 for the
-        # MXU) while keeping parameters and accumulation in `dtype`.
+        # tensor cores) while keeping parameters and accumulation in `dtype`.
         self.compute_dtype = (
             None if compute_dtype is None else jnp.dtype(compute_dtype)
         )

@@ -1,6 +1,6 @@
 """DistributedEmbedding: the user-facing sharded embedding layer.
 
-TPU-native rebuild of the reference's flagship layer
+JAX rebuild of the reference's flagship layer
 (keras_rs/src/layers/embedding/base_distributed_embedding.py and
 jax/distributed_embedding.py): nested feature structures, per-table
 placement dispatch ("sharded" over the mesh vs "default_device"
@@ -122,7 +122,7 @@ class DistributedEmbedding(Module):
         self.auto_grow = auto_grow
         #: "bfloat16" compresses the lookup's two [B, F, dim]-sized
         #: collectives (fwd activation reduce-scatter, bwd cotangent
-        #: all-gather) on the wire — half the ICI bytes per step; local
+        #: all-gather) on the wire — half the exchange bytes per step; local
         #: accumulation stays f32 (see lookup.stack_lookup).
         if comm_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
@@ -1036,8 +1036,7 @@ class FrozenEmbedding(Module):
             }
             if quantize == "int8_fused":
                 # Scale rides the data gather: 8 rows + 8 scales per
-                # group row (the round-5 probe showed the separate
-                # scale gather was the whole int8 latency penalty).
+                # group row, no separate scale gather.
                 from keras_rs_tpu.ops.quant import pack_rows_int8_fused
 
                 # dim-128 tables only (one lane tile per byte plane);

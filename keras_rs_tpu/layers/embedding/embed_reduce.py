@@ -1,8 +1,8 @@
 """EmbedReduce: embedding lookup followed by a weighted combiner reduce.
 
-TPU-native reimplementation of keras_rs/src/layers/embedding/
+JAX reimplementation of keras_rs/src/layers/embedding/
 embed_reduce.py:91-274. Ragged/sparse inputs are standardized to the
-TPU-friendly padded-dense-plus-weights form: a (B, L) int id matrix plus a
+jit-friendly padded-dense-plus-weights form: a (B, L) int id matrix plus a
 (B, L) float weight matrix whose zeros mark padding. XLA lowers the lookup
 to a gather and the combine to a fused multiply/segment reduction.
 """
@@ -202,18 +202,15 @@ class QuantizedEmbedReduce(EmbedReduce):
       * "rows" (default): int8 [R, dim] gather + [R, 1] scale gather +
         dequant multiply.
       * "packed": 4 consecutive rows bitcast into one int32 [R/4, dim]
-        group row (ops/quant.py pack_rows_int8_groups) — ONE word-typed
-        gather at the f32 descriptor rate (int8-typed rows pay the
-        sub-32-bit gather penalty BASELINE.md documents) + an integer
-        in-register select + a 1-D scale gather. Bit-identical outputs
-        to "rows" (tools/probe_int8_serving.py measures both on chip).
+        group row (ops/quant.py pack_rows_int8_groups) — ONE 32-bit
+        gather + an integer in-register select + a 1-D scale gather.
+        Bit-identical outputs to "rows" (tools/probe_int8_serving.py
+        times both).
       * "fused" (dim-128 only): 8 rows AND their 8 scales per int32
         [R/8, 384] group row (ops/quant.py pack_rows_int8_fused) — the
-        scale rides the SAME gather descriptor as the data. The
-        round-5 chip probe showed the [R]-scale gather alone TRIPLES
-        int8 lookup cost (0.33 -> 0.93 ms at 40960 lookups; the int8
-        data gather matches f32) — this layout removes it entirely for
-        1.5 B/element (2.67x smaller than f32). Bit-identical outputs.
+        scale rides the SAME gathered row as the data, so the separate
+        [R]-scale gather goes, for 1.5 B/element (2.67x smaller than
+        f32). Bit-identical outputs.
     """
 
     non_trainable_fields = ("q", "scale", "qp")

@@ -1,11 +1,12 @@
 """Sharded embedding lookup: all-to-all exchange + fused optimizer update.
 
-TPU-native rebuild of the two native kernels the reference delegates to
-jax-tpu-embedding (SURVEY.md §2.10 items 1-2):
+Rebuild, in plain JAX collectives and XLA gathers/scatters, of the two
+native kernels the reference delegates to jax-tpu-embedding (SURVEY.md
+§2.10 items 1-2):
 
   forward  (parity: `tpu_sparse_dense_matmul`, called at
             keras_rs/src/layers/embedding/jax/embedding_lookup.py:137):
-    all_to_all the pre-bucketed COO ids over ICI -> each shard gathers its
+    all_to_all the pre-bucketed COO ids -> each shard gathers its
     local rows -> weighted segment-sum partials per (source device,
     segment) -> all_to_all partials back -> sum over shards -> combiner
     divisor. Comm volume: ids (small) + one [B_global, dim] activation
@@ -35,14 +36,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from keras_rs_tpu.layers.embedding.stacking import TableStack
 from keras_rs_tpu.ops import bitpack
 from keras_rs_tpu.ops.quant import cast_rows_for_storage
-from keras_rs_tpu.ops.row_ops import (
-    MAX_BLOCK_WIDTH,
-    apply_scatter_row_blocks,
-    pallas_supported,
-    scatter_row_blocks_unique,
-    scatter_rows_unique,
-    scatter_rows_unique_multi,
-)
 
 
 def init_stack_state(
@@ -55,10 +48,9 @@ def init_stack_state(
     Packed layout (`stack.packed_state`): the table row and its slot rows
     form the [state_stride, dim] groups of ONE 3-D array —
       {"table": [R, state_stride, dim], "step": []} —
-    so the backward fetches table+slots with one block gather (HBM
-    byte-bound) and writes them back with one DMA per unique row
-    (ops/row_ops.py scatter_row_blocks). The array must stay 3-D end to
-    end — reshaping it breaks XLA's in-place aliasing and costs a full
+    so the backward fetches table+slots with one block gather and writes
+    them back with one unique-index scatter. The array must stay 3-D end
+    to end — reshaping it breaks XLA's in-place aliasing and costs a full
     table copy per step. `stacking.gather_table` / `scatter_table` are
     layout-aware, so export/import sees the same logical [vocab, dim]
     tables either way.
@@ -72,10 +64,8 @@ def init_stack_state(
         return {"table": packed, "step": jnp.zeros((), jnp.float32)}
     logical_shape = table.shape
     if stack.bitpacked_state:
-        # bf16 rows bit-packed pairwise into uint32 words: gathers at
-        # the f32 descriptor rate, updates through the proven 4-byte
-        # Pallas kernel (ops/bitpack.py). Slots stay f32 at the LOGICAL
-        # row count.
+        # bf16 rows bit-packed pairwise into 32-bit words
+        # (ops/bitpack.py). Slots stay f32 at the LOGICAL row count.
         table = bitpack.pack_rows(table.astype(jnp.bfloat16))
     # Optimizer slots stay f32 even for bf16 tables (accumulators need
     # the precision). Row-wise slots hold one scalar per row ([R] 1-D,
@@ -100,25 +90,14 @@ def init_stack_state(
 #: Forward table-row fetch from the packed [R, stride, dim] state:
 #: False = axis-0 block gather + row-0 slice (fetches the optimizer
 #: slot rows too — 2x the bytes); True = 2-index lax.gather of
-#: (slot, 0) rows. Flip after the chip A/B
-#: (tools/probe_preproc_ops.py take_rows2d_packed vs
-#: take_blocks_packed; the round-5 flagship profile showed the block
-#: gather at 169 GB/s = 17.1 ms/step, half of it discarded bytes).
+#: (slot, 0) rows. Unmeasured on the GPU; the A/B is
+#: tools/probe_preproc_ops.py take_rows2d_packed vs take_blocks_packed.
 FWD_ROW_GATHER = False
-
-#: Fused optimizer-apply + update-scatter kernel for the packed state
-#: (ops/row_ops.py apply_scatter_row_blocks): the update math runs on
-#: the VMEM tiles inside the scatter kernel, removing the updated
-#: blocks' HBM round-trip and the layout-change copies XLA inserts
-#: around the elementwise optimizer fusions. Auto-enabled whenever the
-#: packed Pallas scatter itself is (TPU, dim 128, f32).
-FUSED_RMW_AUTO = True
 
 
 def _shard_map(f, mesh, in_specs, out_specs):
-    # check_vma=False: the backward pass contains pallas_calls whose
-    # out_shape carries no varying-mesh-axes annotation; the in/out
-    # specs here are explicit and authoritative.
+    # check_vma=False: the in/out specs here are explicit and
+    # authoritative.
     return jax.shard_map(
         f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
         check_vma=False,
@@ -143,7 +122,7 @@ def stack_lookup(
     `comm_dtype="bfloat16"` compresses the two [B, F, dim]-sized
     collectives — the forward's partial-activation reduce-scatter and
     the backward's cotangent all-gather — to bf16 on the wire, halving
-    the embedding path's ICI bytes (tools/weak_scaling.py accounts the
+    the embedding path's exchange bytes (tools/weak_scaling.py accounts the
     exact volumes). Local math stays f32: partials are accumulated in
     f32 before the cast, and gradients are upcast right after the
     gather, so only the exchanged values round.
@@ -154,9 +133,6 @@ def stack_lookup(
     S_l = stack.num_features * (stack.batch_size // D)
     dim = stack.stack_dim
     optimizer = stack.optimizer
-    # Packed layout: table+slot rows interleaved with this stride (see
-    # init_stack_state); slot ids scale by it on every table access.
-    stride = stack.state_stride
     packed = stack.packed_state
     bitpacked = stack.bitpacked_state
     is_bf16 = stack.dtype == "bfloat16"
@@ -182,9 +158,7 @@ def stack_lookup(
             if FWD_ROW_GATHER:
                 # 2-index gather of (slot, 0): fetches HALF the bytes
                 # of the block gather (which drags the optimizer-slot
-                # rows along only to slice them off). Gated on the
-                # measured A/B (tools/probe_preproc_ops.py
-                # take_rows2d_packed vs take_blocks_packed).
+                # rows along only to slice them off).
                 idx2 = jnp.stack(
                     [flat_slots, jnp.zeros_like(flat_slots)], axis=1
                 )
@@ -200,9 +174,7 @@ def stack_lookup(
                 )
             # mode="clip": slots are in-bounds by construction (sink
             # = R-1); the default "fill" mode adds an out-of-bounds
-            # SELECT pass over the gathered bytes — 5.4 ms/step on a
-            # [1.4M, 2, 128] gather at flagship valence (round-5
-            # profile, broadcast_select fusions).
+            # select pass over the gathered bytes.
             return jnp.take(
                 table, flat_slots, axis=0, mode="clip"
             )[:, 0]
@@ -258,11 +230,11 @@ def stack_lookup(
     # TableStack.construction_fwd): entries arrive in raw feature-
     # concatenated order where the segment structure is STATIC — the
     # combiner reduce is a dense per-feature reshape-sum instead of a
-    # segment-sum over the slot-sorted buffer. At flagship valence the
-    # segment-sum (XLA: internal sort + segmented combine) cost
-    # 20.6 ms/step; the reshape-sum is a byte-bound elementwise pass
-    # (~2 ms). The backward is untouched: it consumes the slot-sorted
-    # residuals, whose dedup adjacency and sorted segment ids it needs.
+    # segment-sum over the slot-sorted buffer, which XLA lowers to an
+    # internal sort plus a segmented combine; the reshape-sum is one
+    # elementwise pass. The backward is untouched: it consumes the
+    # slot-sorted residuals, whose dedup adjacency and sorted segment
+    # ids it needs.
     fwd_slots_c = coo.get("fwd_slots")
     fwd_gains_c = coo.get("fwd_gains")
     use_construction = (
@@ -284,8 +256,7 @@ def stack_lookup(
         # [N, dim] weighted array first): lets XLA fuse each feature's
         # slice -> multiply -> reduce into one pass over the gather
         # output instead of a full-array multiply plus per-feature
-        # slice COPIES (~3.5 ms/step of reshape/slice fusions in the
-        # round-5 pass-3 profile).
+        # slice copies.
         for fspec in stack.features:
             n = fspec.batch_size * fspec.valence
             L = fspec.valence
@@ -348,79 +319,35 @@ def stack_lookup(
         # emit identical bytes.
         # At D == 1 the entry order is slot-ascending (the slot-major
         # contract) so e_unique is non-decreasing: the sorted hint lets
-        # XLA skip the scatter-lowering's internal sort pass (measured
-        # 21.7 -> 11.8 ms for a 1.4M x 128 segment-sum at flagship
-        # scale, tools/probe_preproc_ops.py). At D > 1 the received
-        # buffer is D sorted runs, not globally sorted — no hint.
+        # XLA skip the scatter-lowering's internal sort pass. At D > 1
+        # the received buffer is D sorted runs, not globally sorted — no
+        # hint.
         row_grads = jax.ops.segment_sum(
             ge, e_unique, num_segments=U, indices_are_sorted=(D == 1)
         )  # [U, dim]
 
+        # Named for profiler attribution: the unique-row fetch, the
+        # optimizer and the update scatter.
+        with jax.named_scope("embedding_update"):
+            return update_rows(table, slots, step, u_slots, row_grads)
+
+    def update_rows(table, slots, step, u_slots, row_grads):
+        """Applies the summed row gradients to the unique rows u_slots."""
         # unique_slots is ascending by construction (sorted dedup + sink
-        # padding at the top index): sorted gathers run at HBM speed on
-        # TPU (the hint is free; rate is descriptor-bound either way,
-        # ~170M rows/s at dim 128 — see ops/row_ops.py).
+        # padding at the top index), so the gathers pass the sorted hint.
         if packed:
             # One block gather fetches the table row AND its slot rows
-            # ([U, stride, dim] groups, HBM byte-bound); one block
-            # scatter writes them back (one DMA each) — the stride-for-1
-            # descriptor saving that makes this layout the fastest
-            # update path (ops/row_ops.py scatter_row_blocks). No
-            # reshape: the 3-D array must flow straight from gather to
-            # the aliased scatter or XLA inserts a full-table copy.
+            # ([U, stride, dim] groups); one unique-index scatter writes
+            # them back. No reshape: the 3-D array must flow straight
+            # from the gather to the scatter, or XLA inserts a full-table
+            # copy instead of updating in place.
             blk = jnp.take(
                 table,
                 u_slots,
                 axis=0,
                 indices_are_sorted=True,
-                mode="clip",  # u_slots in-bounds (sink-padded); the
-                #               fill-select cost 5.4 ms/step here
+                mode="clip",  # u_slots are in-bounds (sink-padded)
             ).astype(jnp.float32)
-            # Skip the DMA tail: uniques are a PREFIX of u_slots (all
-            # three preprocessing backends pad with the sink slot at
-            # the top), tail rows carry exactly-zero gradients, and
-            # zero-grad updates are value-identity for every fused
-            # optimizer (slots start and stay 0 on the sink row) — so
-            # only the first n_valid descriptors must land. The scatter
-            # is descriptor-rate bound: on deduplicating workloads
-            # (flagship valence ~36% dup at uniform ids, far more on
-            # power-law data) this cuts the step's largest single cost
-            # proportionally.
-            n_valid = jnp.sum(
-                (u_slots != stack.sink_slot).astype(jnp.int32)
-            )
-            use_fused = FUSED_RMW_AUTO and pallas_supported(
-                dim, table.dtype
-            ) and stride * dim <= MAX_BLOCK_WIDTH
-            if use_fused:
-                # Fused optimizer-apply + scatter: the update math runs
-                # IN the scatter kernel on the VMEM tiles, so the
-                # updated blocks never round-trip HBM and XLA's layout-
-                # change copies around the elementwise fusions vanish
-                # (~14 ms/step at flagship valence, round-5 profile).
-                names = optimizer.slot_names
-
-                def rmw_apply(blk_t, grads_t, scalars):
-                    rows_t = blk_t[:, 0]
-                    slot_t = {
-                        k: blk_t[:, 1 + i]
-                        for i, k in enumerate(names)
-                    }
-                    nr, ns = optimizer.apply(
-                        rows_t, grads_t, slot_t, scalars[0]
-                    )
-                    return [nr] + [ns[k] for k in names]
-
-                new_table = apply_scatter_row_blocks(
-                    table,
-                    u_slots,
-                    blk,
-                    row_grads,
-                    jnp.reshape(step.astype(jnp.float32), (1,)),
-                    rmw_apply,
-                    n_valid,
-                )
-                return new_table, {}
             rows = blk[:, 0]
             slot_rows = {
                 k: blk[:, 1 + i]
@@ -434,8 +361,11 @@ def stack_lookup(
                 + [new_slot_rows[k] for k in optimizer.slot_names],
                 axis=1,
             )
-            new_table = scatter_row_blocks_unique(
-                table, u_slots, new_blk, n_valid
+            # u_slots repeats the sink slot past its unique prefix; those
+            # entries carry exactly-zero gradients and read the same
+            # block, so every duplicate write carries identical bytes.
+            new_table = table.at[u_slots].set(
+                new_blk.astype(table.dtype), unique_indices=True
             )
             return new_table, {}
         if bitpacked:
@@ -460,13 +390,6 @@ def stack_lookup(
         new_rows, new_slot_rows = optimizer.apply(
             rows, row_grads, slot_rows, step
         )
-        # Row-wise (1-D, one scalar/row) slots update through XLA's 1-D
-        # scatter — U*4 bytes, negligible next to the row DMAs. u_slots
-        # repeats the sink id for padding entries, but those carry an
-        # exactly-zero gradient (dropped by the sentinel) so every
-        # duplicate writes the same bytes.
-        rw_keys = [k for k in slots if slots[k].ndim == 1]
-        row_keys = [k for k in slots if slots[k].ndim > 1]
         if is_bf16:
             # Stochastic rounding: deterministic key from (step, shard).
             sr_key = jax.random.fold_in(
@@ -482,44 +405,24 @@ def stack_lookup(
             new_rows = new_rows.astype(table.dtype)
         if bitpacked:
             # Merge each row's bits with its pair partner's half and
-            # write whole uint32 words through the proven 4-byte Pallas
-            # row kernel (ops/bitpack.py): descriptor-rate updates for
-            # bf16 instead of XLA's byte-rate scatter. Pairs where both
-            # rows updated emit identical duplicate words (benign).
+            # write whole 32-bit words (ops/bitpack.py). Pairs where both
+            # rows updated emit identical duplicate words.
             pair_ids, words = bitpack.merge_updated_rows(
                 pair_words, u_slots, new_rows
             )
-            new_table = scatter_rows_unique(table, pair_ids, words)
-            new_slots = dict(
-                zip(
-                    row_keys,
-                    scatter_rows_unique_multi(
-                        [slots[k] for k in row_keys],
-                        u_slots,
-                        [new_slot_rows[k] for k in row_keys],
-                    ),
-                )
-                if row_keys
-                else ()
-            )
+            new_table = table.at[pair_ids].set(words, unique_indices=True)
         else:
-            # Unique-row scatter: ONE Pallas kernel with interleaved DMA
-            # streams for the table and every optimizer slot (the
-            # scatters are descriptor-rate bound; running them in one
-            # kernel overlaps the streams, ~15% over back-to-back
-            # single-stream kernels). In place via buffer aliasing; XLA
-            # fallback off-TPU.
-            outs = scatter_rows_unique_multi(
-                [table] + [slots[k] for k in row_keys],
-                u_slots,
-                [new_rows] + [new_slot_rows[k] for k in row_keys],
+            new_table = table.at[u_slots].set(
+                new_rows, unique_indices=True
             )
-            new_table = outs[0]
-            new_slots = dict(zip(row_keys, outs[1:]))
-        for k in rw_keys:
-            new_slots[k] = slots[k].at[u_slots].set(
-                new_slot_rows[k], indices_are_sorted=True
+        # Same duplicate-sink contract as the packed path above; row
+        # slots are [R, dim], row-wise slots [R].
+        new_slots = {
+            k: v.at[u_slots].set(
+                new_slot_rows[k].astype(v.dtype), unique_indices=True
             )
+            for k, v in slots.items()
+        }
         return new_table, new_slots
 
     # Per-leaf slot specs: [R, dim] row slots shard as P(axis, None),
@@ -588,7 +491,7 @@ def split_activations(
     a pure reshape + per-feature static slice — no transpose between the
     embedding path and the dense stack (the feature-major layout used to
     cost a materialized [B, F, dim] permutation in the downstream
-    concat; VERDICT r2 #1).
+    concat).
     """
     F = stack.num_features
     a = acts.reshape(stack.batch_size, F, stack.stack_dim)

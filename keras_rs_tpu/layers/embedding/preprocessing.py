@@ -319,7 +319,7 @@ def preprocess_stack(
     # Fold the combiner divisor into the gains (one f32 gather+divide
     # per entry at preprocess time). The lookup kernel then computes
     # acts = sum(folded_gain * row) with NO per-step divisions on
-    # device, forward or backward — the step-time win of VERDICT r2 #1.
+    # device, forward or backward.
     # Padding entries have gain 0, so 0/div stays 0. All three backends
     # apply this identical elementwise expression to bit-identical
     # inputs, preserving cross-backend bit parity.

@@ -86,19 +86,15 @@ class TableStack:
     dtype: str = "float32"  # storage dtype (see TableConfig.dtype)
     #: Packed state layout: the table row and its optimizer-slot rows
     #: form the [state_stride, dim] groups of one 3-D
-    #: [global_rows, state_stride, dim] array. A one-lane-tile-wide f32
-    #: array is contiguous row-major in HBM, so each group is one
-    #: contiguous byte range: the backward's table+slots update is ONE
-    #: DMA per unique row instead of one per stream, and the fetch is a
-    #: byte-bound block gather — the single biggest step-time lever
-    #: (ops/row_ops.py scatter_row_blocks).
+    #: [global_rows, state_stride, dim] array, so each group is one
+    #: contiguous byte range: the backward fetches table+slots with ONE
+    #: block gather and writes them back with ONE unique-index scatter
+    #: instead of one per stream.
     packed_state: bool = False
     #: Bit-packed state layout for bf16 stacks: the table lives as ONE
     #: uint32 [global_rows/2, dim] array, word [p, i] packing element i
-    #: of logical rows (2p, 2p+1) — so gathers run at the f32 descriptor
-    #: rate and updates ride the hardware-proven 4-byte Pallas row
-    #: kernel instead of XLA's 7 GB/s bf16 scatter (ops/bitpack.py).
-    #: rows_per_shard is kept EVEN with the sink row given a dead pair
+    #: of logical rows (2p, 2p+1); gathers and updates move whole 32-bit
+    #: words (ops/bitpack.py). rows_per_shard is kept EVEN with the sink row given a dead pair
     #: partner, so pairing is shard-local and sink-duplicate writes stay
     #: benign.
     bitpacked_state: bool = False
@@ -129,9 +125,7 @@ class TableStack:
         structure is STATIC (feature f's entries are a contiguous
         [B, valence_f] block): the combiner reduce becomes a dense
         per-feature reshape-sum instead of a 1.4M-entry segment-sum
-        (measured 21.7 -> ~2 ms at flagship scale on v5e,
-        tools/probe_preproc_ops.py + the round-5 flagship profile).
-        Requires every entry to fit the bucket (no drop semantics in
+        (tools/probe_preproc_ops.py times both). Requires every entry to fit the bucket (no drop semantics in
         construction order): N <= C, which also guarantees the sorted
         send buffers dropped nothing.
         """
@@ -306,10 +300,12 @@ def build_stacks(
 
         optimizer = opt_lib.get(group[0].optimizer)
         n_slots = len(optimizer.slot_names)
-        # Packed (row-interleaved table+slots) layout whenever the
-        # backward's block DMA applies: f32 state (slots are f32, so a
-        # bf16 table cannot share the buffer), lane-tile-aligned rows,
-        # and the [stride * dim] VMEM block within the Pallas budget.
+        # Packed (row-interleaved table+slots) layout: f32 state (slots
+        # are f32, so a bf16 table cannot share the buffer) with
+        # 128-wide rows and at most 512 floats per [stride, dim] group.
+        # These bounds are the layout rule as first chosen; whether the
+        # packed layout beats the split one on this device is an open
+        # measurement (ROADMAP S4).
         packed = (
             group[0].dtype == "float32"
             and n_slots >= 1
@@ -317,8 +313,8 @@ def build_stacks(
             and stack_dim % 128 == 0
             and (1 + n_slots) * stack_dim <= 512
         )
-        # Bit-packed uint32 layout for bf16 stacks whose row width fits
-        # the proven 4-byte Pallas DMA envelope (ops/bitpack.py).
+        # Bit-packed 32-bit-word layout for 128-wide bf16 stacks
+        # (ops/bitpack.py).
         bitpacked = (
             group[0].dtype == "bfloat16"
             and stack_dim % 128 == 0

@@ -1,10 +1,10 @@
 """DLRM DotInteraction layer.
 
-TPU-native reimplementation of keras_rs/src/layers/feature_interaction/
-dot_interaction.py:12-222: stack features, one batched matmul (MXU), then
+JAX reimplementation of keras_rs/src/layers/feature_interaction/
+dot_interaction.py:12-222: stack features, one batched matmul, then
 either a static lower-triangular gather or a tril-mask + flatten
 (`skip_gather=True`, which avoids the gather at the cost of a larger
-output — usually the right trade on TPU where the downstream matmul is
+output — usually the right trade on accelerators where the downstream matmul is
 cheap and gathers are not).
 """
 

@@ -1,10 +1,10 @@
 """DCNv2 FeatureCross layer.
 
-TPU-native reimplementation of keras_rs/src/layers/feature_interaction/
+JAX reimplementation of keras_rs/src/layers/feature_interaction/
 feature_cross.py:12-194:
     x_{i+1} = x0 .* (pre_act(W x + b) + diag_scale * x) + x
 with optional low-rank factorization W = U @ V via `projection_dim`.
-The two matmuls land on the MXU; everything else fuses on the VPU.
+XLA fuses everything else around the two matmuls.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """GRU layer for sequential retrieval (GRU4Rec).
 
 The reference's sequential_retrieval example uses `keras.layers.GRU`
-(examples/sequential_retrieval.py:300-306). TPU-native formulation: the
+(examples/sequential_retrieval.py:300-306). JAX formulation: the
 input projections for ALL timesteps are computed as one batched matmul
-(MXU-friendly), and only the small recurrent matmul runs inside
+(one large matmul), and only the small recurrent matmul runs inside
 `lax.scan`. Padded steps (mask == 0) carry the previous state through.
 """
 
@@ -62,7 +62,7 @@ class GRU(Module):
         """
         B, T, _ = x.shape
         H = self.units
-        # One big MXU matmul for all timesteps.
+        # One big matmul for all timesteps.
         xz = (
             jnp.matmul(x, self.kernel, preferred_element_type=x.dtype)
             + self.bias

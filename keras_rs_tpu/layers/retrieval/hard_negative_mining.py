@@ -1,6 +1,6 @@
 """Hard negative mining.
 
-TPU-native reimplementation of keras_rs/src/layers/retrieval/
+JAX reimplementation of keras_rs/src/layers/retrieval/
 hard_negative_mining.py:10-94: keep the top `num_hard_negatives` negatives
 plus the positive by boosting the positive's logit with a large constant,
 taking an (unsorted) top-k, and gathering.

@@ -1,8 +1,8 @@
-"""Approximate MIPS retrieval: k-means inverted file (IVF) on TPU.
+"""Approximate MIPS retrieval: k-means inverted file (IVF).
 
 The reference's ScaNN usage is example-level (examples/scann.py:219-238,
-tree + asymmetric hashing + reorder, C++). The TPU-native equivalent keeps
-everything as dense MXU work: candidates are partitioned by k-means
+tree + asymmetric hashing + reorder, C++). The JAX equivalent keeps
+everything as dense matmul work: candidates are partitioned by k-means
 (trained with a few jitted Lloyd iterations), stored as a padded
 [num_clusters, cluster_capacity, dim] tensor; a query scores the
 centroids, picks `num_probes` clusters, gathers only those candidates and

@@ -1,6 +1,6 @@
 """Accidental-hit removal for in-batch negative sampling.
 
-TPU-native reimplementation of keras_rs/src/layers/retrieval/
+JAX reimplementation of keras_rs/src/layers/retrieval/
 remove_accidental_hits.py:26-97: negatives whose candidate id equals the
 row's positive candidate id get a huge negative logit penalty so softmax
 ignores them.

@@ -1,8 +1,8 @@
 """Retrieval base + exact brute-force top-k MIPS.
 
-TPU-native reimplementation of keras_rs/src/layers/retrieval/retrieval.py
+JAX reimplementation of keras_rs/src/layers/retrieval/retrieval.py
 and brute_force_retrieval.py. Scoring is a single (B, D) x (D, N) matmul
-(MXU-bound) followed by `lax.top_k`; this is already the optimal single-chip
+(matmul-bound) followed by `lax.top_k`; this is already the optimal single-chip
 layout for exact MIPS. The mesh-sharded variant (candidates row-sharded,
 local top-k per shard + gathered merge) is
 keras_rs_tpu.parallel.sharded_retrieval.ShardedBruteForceRetrieval.

@@ -1,6 +1,6 @@
 """Sampling probability correction (logQ correction).
 
-TPU-native reimplementation of keras_rs/src/layers/retrieval/
+JAX reimplementation of keras_rs/src/layers/retrieval/
 sampling_probability_correction.py:39-58:
     logits - log(clip(p, eps, 1)).
 """

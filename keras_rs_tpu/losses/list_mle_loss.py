@@ -1,6 +1,6 @@
 """ListMLE listwise ranking loss.
 
-TPU-native reimplementation of keras_rs/src/losses/list_mle_loss.py:70-158:
+JAX reimplementation of keras_rs/src/losses/list_mle_loss.py:70-158:
 sort logits by labels (stable, no tie shuffling), temperature-scale, then
 the negative log-likelihood of the induced permutation via a
 flip-cumsum-flip logsumexp-from-the-right.

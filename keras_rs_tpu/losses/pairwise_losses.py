@@ -1,6 +1,6 @@
 """Pairwise ranking losses: hinge, logistic, soft zero-one, pairwise MSE.
 
-TPU-native reimplementation of keras_rs/src/losses/pairwise_*.py. The
+JAX reimplementation of keras_rs/src/losses/pairwise_*.py. The
 (B, L, L) pairwise tensors are built with broadcasts that XLA fuses into a
 single elementwise pass; the final `sum` over the j axis keeps the output at
 (B, L) per-item losses, matching the reference's reduction contract.

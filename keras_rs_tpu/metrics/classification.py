@@ -2,7 +2,7 @@
 
 The reference's DLRM workload evaluates with `keras.metrics.BinaryAccuracy`
 and `keras.metrics.AUC` (examples/ml_perf/main.py:206-209; MLPerf's target
-is AUC ~0.8275). TPU-native versions with the same design as the ranking
+is AUC ~0.8275). JAX versions with the same design as the ranking
 metrics: explicit pytree state + pure `update`, so the accumulation runs
 INSIDE the jitted eval step (no device->host logits transfer per batch),
 plus the thin stateful convenience API.

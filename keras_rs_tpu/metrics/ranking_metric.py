@@ -1,6 +1,6 @@
 """Ranking metric base class.
 
-TPU-native redesign of keras_rs/src/metrics/ranking_metric.py:40-209. The
+JAX redesign of keras_rs/src/metrics/ranking_metric.py:40-209. The
 reference builds on `keras.metrics.Mean` with mutable variables; here metric
 state is an explicit pytree (`MeanState`) so `update` is a pure function that
 composes with `jax.jit` / `shard_map` train steps, plus a thin stateful

@@ -1,6 +1,6 @@
 """The six ranking metrics: DCG, NDCG, MAP, MRR, Precision@k, Recall@k.
 
-TPU-native reimplementation of keras_rs/src/metrics/{dcg,ndcg,
+JAX reimplementation of keras_rs/src/metrics/{dcg,ndcg,
 mean_average_precision,mean_reciprocal_rank,precision_at_k,recall_at_k}.py.
 All per-list computations are pure jnp over (batch, list) tensors.
 """

@@ -76,22 +76,19 @@ class DLRMConfig:
         #: "rowwise_adagrad" (scalar-per-row accumulator — pairs with
         #: table_dtype="bfloat16" for the HBM-capacity mode).
         self.embedding_optimizer = embedding_optimizer
-        #: "bfloat16" (DEFAULT since round 5) keeps the dense stack's
-        #: ACTIVATIONS resident in bf16 between matmul fusions (params
-        #: and accumulation stay f32) — halves inter-fusion activation
-        #: bytes, 1.9x on the measured dense stack
-        #: (tools/probe_dense_mfu.py chip A/B), with AUC parity proven
-        #: on chip: synthetic-CTR 2000-step curve 0.7684 bf16-resident
-        #: vs 0.7684 f32 (round-5 mlperf_bf16_dense vs the round-3 f32
-        #: run). None/"float32" = f32 activations (bit-level
-        #: reference-parity numerics).
+        #: "bfloat16" (default) keeps the dense stack's ACTIVATIONS
+        #: resident in bf16 between matmul fusions (params and
+        #: accumulation stay f32) — halves inter-fusion activation
+        #: bytes (tools/probe_dense_mfu.py times the variants).
+        #: None/"float32" = f32 activations (reference-parity
+        #: numerics).
         self.dense_output_dtype = (
             None if dense_output_dtype == "float32"
             else dense_output_dtype
         )
         #: "bfloat16" sends the embedding exchange (fwd reduce-scatter,
-        #: bwd all-gather) over ICI in bf16 — half the comm bytes per
-        #: step on multi-chip meshes (lookup.stack_lookup).
+        #: bwd all-gather) in bf16 — half the exchange bytes per step
+        #: on multi-device meshes (lookup.stack_lookup).
         self.embedding_comm_dtype = embedding_comm_dtype
 
 

@@ -1,21 +1,18 @@
-"""bf16 tables bit-packed pairwise into 32-bit words: Pallas-rate updates.
+"""bf16 tables bit-packed pairwise into 32-bit words.
 
-The round-2 hardware envelope (ops/row_ops.py `pallas_supported`) proved
-single bf16 rows cannot be DMA-sliced on TPU — bf16 memory is
-(16, 128)-tiled with two logical rows interleaved per 32-bit sublane, so
-bf16 tables fell back to XLA's ~7 GB/s scatter (1.08M vs 2.01M ex/s at
-bench shape, BASELINE.md). This module removes that penalty WITHOUT any
-new DMA mode: store the bf16 table as ONE 32-bit array of shape
-[R/2, dim] where word [p, i] packs element i of logical rows (2p, 2p+1)
-in its (low, high) 16-bit halves. Then:
+The bf16 table is stored as ONE 32-bit array of shape [R/2, dim] where
+word [p, i] packs element i of logical rows (2p, 2p+1) in its (low,
+high) 16-bit halves. Then:
 
-  * row GATHERS run on the packed array at the f32 descriptor rate
-    (~170M rows/s — measured FASTER than bf16-row gathers, which pay a
-    lane-alignment penalty) + a vectorized halfword extract;
+  * row GATHERS run on the packed array + a vectorized halfword extract;
   * row UPDATES merge the new row's bits with the partner row's half
-    (read from the same gathered word) and write whole words through
-    the hardware-PROVEN 4-byte dim-128 Pallas row kernel
-    (ops/row_ops.py scatter_rows) — descriptor-rate bound, ~3x XLA.
+    (read from the same gathered word) and write whole words with a
+    unique-index scatter.
+
+The layout exists because the first accelerator this library ran on
+could not update a single bf16 row from its kernels; XLA's GPU scatter
+writes bf16 rows directly, so whether this layout still earns its place
+is an open question (ROADMAP D3).
 
 The packed words are STORED as float32 (a pure bitcast): jax.grad
 rejects integer pytree leaves, and the custom-vjp Overwrite contract
@@ -26,15 +23,13 @@ through an explicit bitcast here.
 
 Both rows of a pair updated in one step is handled by the sorted-
 adjacency merge below; such entries emit IDENTICAL words, so the
-duplicate-write race is benign (the same contract the row kernel's sink
-padding relies on). HBM cost is exactly 2 bytes/element — true bf16
-capacity.
+duplicate writes are benign (the same contract the dedup's sink padding
+relies on). Memory cost is exactly 2 bytes/element — true bf16 capacity.
 
 Parity context: this is the storage layer under the bf16 mode of the
 SparseCore update kernel the reference delegates to jax-tpu-embedding
 (keras_rs/src/layers/embedding/jax/embedding_lookup.py:225); the
-reference's SparseCore hardware natively supports sub-32-bit rows, the
-TensorCore rebuild gets there by packing.
+reference's SparseCore hardware natively supports sub-32-bit rows.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Parity: keras_rs/src/losses/pairwise_loss_utils.py. Builds the
 (batch, list, list) pairwise structures; XLA fuses the broadcasts into a
-single VPU pass so no materialization tricks are needed on TPU.
+single fused pass so no materialization tricks are needed.
 """
 
 from __future__ import annotations

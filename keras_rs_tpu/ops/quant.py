@@ -36,10 +36,8 @@ def quantize_rows_int8(table: Tensor) -> tuple[Tensor, Tensor]:
     Returns `(q, scale)` with `q` int8 [R, dim] and `scale` f32 [R, 1]
     such that `q * scale ~= table` (max abs error <= scale/2 per
     element, i.e. absmax/254 per row). Zero rows get scale 1 so the
-    dequantized row is exactly zero. 4x less serving HBM than f32 (2x
-    vs bf16); row gathers are descriptor-bound on TPU, so the smaller
-    rows cost no extra latency (BASELINE.md key-op table). Same scheme
-    as the int8 asymmetric-hashing store in
+    dequantized row is exactly zero. 4x less serving memory than f32
+    (2x vs bf16). Same scheme as the int8 asymmetric-hashing store in
     layers/retrieval/kmeans_retrieval.py.
     """
     x = jnp.asarray(table, jnp.float32)
@@ -60,19 +58,15 @@ def pack_rows_int8_groups(q: Tensor) -> Tensor:
     (word[g, d] = q[4g, d] | q[4g+1, d]<<8 | q[4g+2, d]<<16
     | q[4g+3, d]<<24).
 
-    The serving-lookup layout motivated by the int8 gather penalty
-    (BASELINE.md: sub-32-bit rows gather SLOWER per row than f32): the
-    packed table keeps a full 128-lane int32 minor dimension (no TPU
-    tile-padding waste — exactly 1 byte/element amortized), and a row
-    fetch becomes ONE word-typed gather of the 4-row group at the f32
-    descriptor rate followed by two in-register shifts
-    (`take_rows_int8_packed`). R is padded to a multiple of 4 with
-    zero rows.
+    A word-typed serving-lookup layout: the packed table keeps a full
+    int32 minor dimension (exactly 1 byte/element amortized), and a row
+    fetch becomes ONE 32-bit gather of the 4-row group followed by two
+    in-register shifts (`take_rows_int8_packed`). R is padded to a
+    multiple of 4 with zero rows.
 
-    Built from 2-D strided slices + shifts ONLY: the previous
-    bitcast-of-[G, dim, 4] formulation OOMed on TPU — an s8 array with
-    a minor dim of 4 is tile-padded 32x, 16 GB at the 4M-row serving
-    shape (round-4 int8_probe failure, /tmp/chip_r4/int8_probe.log).
+    Built from 2-D strided slices + shifts ONLY: a bitcast of a
+    [G, dim, 4] int8 array would need a minor dimension of 4, which
+    tiled layouts pad many-fold.
     """
     q = jnp.asarray(q)
     if q.dtype != jnp.int8 or q.ndim != 2:
@@ -132,13 +126,9 @@ def pack_rows_int8_fused(q: Tensor, scale: Tensor) -> Tensor:
     """int8 [R, dim] + f32 [R] scales -> int32 [ceil(R/8), 256 + 128]:
     eight rows AND their eight scales per packed group row.
 
-    The round-5 chip probe (tools/probe_int8_serving.py,
-    BENCH_r05 harvest) showed the int8 serving penalty is ENTIRELY the
-    per-row scale gather: the int8 data gather runs at f32 speed
-    (0.350 vs 0.331 ms at 40960 lookups) but adding the [R]-array
-    scale gather triples it (0.93 ms) — a 1-D scalar gather costs MORE
-    per descriptor than a 512 B row gather. This layout makes the
-    scale ride the SAME descriptor as the data: group g packs rows
+    The separate per-row scale gather is a second scattered read per
+    lookup (tools/probe_int8_serving.py times it). This layout makes
+    the scale ride the SAME gathered row as the data: group g packs rows
     8g..8g+7 column-byte-interleaved in two 128-word planes
     (plane p word d = rows 8g+4p..8g+4p+3 at column d, little-endian
     bytes) followed by the 8 scales (f32 bitcast) and 120 pad words —
@@ -216,10 +206,8 @@ def take_rows_int8_fused(packed: Tensor, ids: Tensor) -> Tensor:
         w[:, 256:264], jnp.float32
     )  # [N, 8]
     # Vectorized lane select, NOT take_along_axis: the latter lowers to
-    # N one-element gathers — the exact scalar-gather pathology this
-    # layout exists to avoid (first chip measurement of the fused path
-    # cost 1.05 ms vs 0.36 noscale because of it). An 8-lane masked sum
-    # is pure VPU work.
+    # N one-element gathers — the scalar gather this layout exists to
+    # avoid. An 8-lane masked sum is pure elementwise work.
     sel = k[:, None] == jnp.arange(8, dtype=jnp.int32)[None, :]
     scale = jnp.sum(
         jnp.where(sel, scales8, jnp.float32(0.0)), axis=1

@@ -1,6 +1,6 @@
 """Core ranking math: sorting-by-scores, list weights, DCG.
 
-TPU-native reimplementation of the reference utilities in
+JAX reimplementation of the reference utilities in
 keras_rs/src/metrics/ranking_metrics_utils.py and
 keras_rs/src/metrics/utils.py. Everything is pure jnp (XLA fuses these into
 a handful of VPU ops + one top_k), fully jit/vmap-compatible, and takes an

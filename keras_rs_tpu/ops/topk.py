@@ -5,10 +5,10 @@ form (parity: keras_rs/src/layers/retrieval/brute_force_retrieval.py:
 126-148) materializes a [B, N] score matrix; at production candidate
 counts (N in the millions) that is gigabytes of HBM per batch and OOMs.
 
-`chunked_topk_mips` streams candidates through the MXU in [chunk] blocks
+`chunked_topk_mips` streams candidates through the matmul units in [chunk] blocks
 under `lax.scan`, carrying only a running [B, k] top-k (merged with each
 chunk's local top-k). Peak memory is O(B * (chunk + 2k)) instead of
-O(B * N); the matmuls stay large enough to saturate the MXU. Exactness:
+O(B * N); the matmuls stay large enough to saturate the matmul units. Exactness:
 top-k of a union equals top-k of (top-k of each part) union, so the
 result is identical to the direct form (ties broken by lower index, same
 as lax.top_k on the concatenated scores with index-offset keys).
@@ -40,10 +40,8 @@ def chunked_topk_mips(
     recall_target=None (default): EXACT — identical to
     `lax.top_k(queries @ candidates.T, k)` including tie-breaking by
     lower candidate index, at O(B*chunk) peak memory.
-    recall_target in (0, 1): per-chunk selection uses the TPU-optimized
-    `lax.approx_max_k` (measured 4.5x faster than the exact chunk
-    top_k at 1M x 128: the monolithic sort is the bottleneck, not the
-    MXU matmul); the cross-chunk merge stays exact, so overall recall
+    recall_target in (0, 1): per-chunk selection uses
+    `lax.approx_max_k` instead of the exact chunk top_k; the cross-chunk merge stays exact, so overall recall
     is >= roughly recall_target.
     """
     B, D = queries.shape

@@ -3,7 +3,7 @@
 The reference builds a dedicated 1-D mesh over all TPU devices for
 embedding sharding plus `keras.distribution.DataParallel` for the dense
 model (jax/distributed_embedding.py:203-255, examples/ml_perf/main.py:
-117-119). TPU-natively, a single 1-D mesh serves both roles: the batch is
+117-119). Here a single 1-D mesh serves both roles: the batch is
 sharded over the axis (data parallel) AND embedding tables are row-sharded
 over the same axis (model parallel), exactly the hybrid described in
 SURVEY.md §2.9.

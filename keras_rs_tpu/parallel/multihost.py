@@ -5,7 +5,7 @@ TPU-VM tooling, `multihost_utils.process_allgather` for input-stat sync
 (jax/distributed_embedding.py:663), and per-process dataset sharding with
 identical seeded shuffles (examples/ml_perf/dataloader.py:210-234). These
 helpers package the same capabilities; on a single process they are
-no-ops, so the same training script runs on 1 chip and on a pod.
+no-ops, so the same training script runs on one device and on many hosts.
 """
 
 from __future__ import annotations

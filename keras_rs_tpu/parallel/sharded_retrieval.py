@@ -5,10 +5,10 @@ The reference's `BruteForceRetrieval` scores all candidates on one device
 scale-out story is replicating candidates under DataParallel
 (examples/data_parallel_retrieval.py:43-59). This module shards the
 candidate table by rows over a mesh axis instead: each device scores its
-own candidate block on the MXU, takes a local top-k, and the per-shard
-winners (k per shard, not N) are all-gathered and merged — so both HBM
-and FLOPs scale with the number of chips and the ICI traffic is
-O(shards * B * k), independent of N.
+own candidate block with one matmul, takes a local top-k, and the
+per-shard winners (k per shard, not N) are all-gathered and merged — so
+both device memory and FLOPs scale with the number of devices and the
+interconnect traffic is O(shards * B * k), independent of N.
 """
 
 from __future__ import annotations
@@ -81,8 +81,8 @@ def _sharded_topk(
 class ShardedBruteForceRetrieval(Retrieval):
     """Exact top-k MIPS with candidates row-sharded over a mesh axis.
 
-    Scoring stays a dense (B, D) x (D, N/shard) matmul per device
-    (MXU-optimal); only k winners per shard cross the ICI. Results are
+    Scoring stays a dense (B, D) x (D, N/shard) matmul per device;
+    only k winners per shard cross the interconnect. Results are
     identical to single-device `BruteForceRetrieval` (up to top-k tie
     order). Candidates are non-trainable and NOT serialized (contract of
     the reference, brute_force_retrieval.py:26-28).

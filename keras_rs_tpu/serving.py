@@ -2,7 +2,7 @@
 
 The reference leaves serving to Keras (`model.predict`; the retrieval
 layer is attached at inference time, examples/basic_retrieval.py:260-269).
-For production TPU serving this module provides the two standard shapes:
+For production serving this module provides the two standard shapes:
 
   * `aot_compile(fn, *example_args)` — lower + compile once, get a
     fixed-shape callable with no tracing on the hot path (first-token

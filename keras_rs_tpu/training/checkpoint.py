@@ -1,12 +1,15 @@
 """Sharded checkpointing via Orbax.
 
 The reference delegates checkpointing to Keras saving (SURVEY.md §5);
-the TPU-native equivalent is Orbax: sharded array checkpoints that
+the equivalent here is Orbax: sharded array checkpoints that
 save/restore directly to/from each device's shard (no host gather).
 `save_checkpoint` is a simple BLOCKING save (it waits for durability
 before returning — what you want for epoch-end best/last snapshots);
 `CheckpointManager` is the async, step-rotating path for saving inside
 the training loop without stalling the device.
+
+Orbax is an optional dependency (the `checkpoint` extra): it is imported
+on first use, so training without checkpoints runs without it.
 """
 
 from __future__ import annotations
@@ -14,12 +17,23 @@ from __future__ import annotations
 from typing import Any
 
 import jax
-import orbax.checkpoint as ocp
+
+
+def _ocp():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "Checkpointing needs orbax-checkpoint; install it with "
+            "`pip install 'keras-rs-tpu[checkpoint]'` (or "
+            "`pip install orbax-checkpoint`)."
+        ) from e
+    return ocp
 
 
 def save_checkpoint(path: str, state: Any, *, force: bool = True) -> None:
     """Blocking save of an arbitrary pytree (TrainState, model, ...)."""
-    ckpt = ocp.StandardCheckpointer()
+    ckpt = _ocp().StandardCheckpointer()
     ckpt.save(path, state, force=force)
     ckpt.wait_until_finished()
 
@@ -61,7 +75,7 @@ def restore_checkpoint(path: str, template: Any) -> Any:
     `template` can be a concrete pytree (its arrays define shape, dtype
     and sharding) or a pytree of jax.ShapeDtypeStruct.
     """
-    ckpt = ocp.StandardCheckpointer()
+    ckpt = _ocp().StandardCheckpointer()
     return ckpt.restore(path, _abstract_like(template))
 
 
@@ -69,6 +83,8 @@ class CheckpointManager:
     """Step-rotating async checkpoint manager."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 3):
+        ocp = _ocp()
+        self._ocp = ocp
         self._mgr = ocp.CheckpointManager(
             directory,
             options=ocp.CheckpointManagerOptions(
@@ -77,7 +93,7 @@ class CheckpointManager:
         )
 
     def save(self, step: int, state: Any) -> None:
-        self._mgr.save(step, args=ocp.args.StandardSave(state))
+        self._mgr.save(step, args=self._ocp.args.StandardSave(state))
 
     def restore(self, step: int | None, template: Any) -> Any:
         if step is None:
@@ -85,7 +101,8 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError("No checkpoint found.")
         return self._mgr.restore(
-            step, args=ocp.args.StandardRestore(_abstract_like(template))
+            step,
+            args=self._ocp.args.StandardRestore(_abstract_like(template)),
         )
 
     def latest_step(self) -> int | None:

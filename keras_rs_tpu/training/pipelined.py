@@ -6,9 +6,9 @@ Capability parity with the reference TF backend's
 158-165): embedding lookups overlap with the dense (TensorCore) compute at
 the cost of the lookups being one gradient update old. On real TPU
 SparseCore hardware the overlap is physical (two compute units); in this
-TPU-native JAX design the same semantics make the embedding *dataflow*
+JAX design the same semantics make the embedding *dataflow*
 independent of the dense stack inside one step, so XLA's async scheduler
-can overlap the gather + its ICI all_to_all exchange with the dense
+can overlap the gather + its all_to_all exchange with the dense
 matmuls on multi-chip meshes.
 
 Mechanics per step t (scan-friendly, all static shapes):

@@ -1,7 +1,7 @@
 """Train state and jitted train-step construction.
 
 The reference delegates its training loop to Keras' `model.fit`; the
-TPU-native replacement is an explicit, functional, jit-compiled train step
+replacement here is an explicit, functional, jit-compiled train step
 over a (model, opt_state, step) pytree.
 
 Design:

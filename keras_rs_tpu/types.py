@@ -1,7 +1,7 @@
 """Common type aliases used across the framework.
 
 Parity: keras_rs/src/types.py (Tensor/Shape/Nested aliases), rebuilt for a
-JAX-only, TPU-native stack: `Tensor` is a `jax.Array` (or anything
+JAX-only stack: `Tensor` is a `jax.Array` (or anything
 `jnp.asarray`-able at the boundary), and `Nested` is an arbitrary pytree.
 """
 

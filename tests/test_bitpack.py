@@ -123,21 +123,25 @@ def test_merge_sink_duplicates_are_benign():
     assert (m[5:] == m[5]).all()
 
 
-def test_packed_scatter_through_row_kernel_interpret():
-    """End-to-end: merge + the 4-byte Pallas row kernel (interpret mode)
-    equals the flat bf16 scatter."""
-    from keras_rs_tpu.ops.row_ops import scatter_rows
-
+@pytest.mark.parametrize("with_sink", [False, True])
+def test_packed_scatter_through_xla(with_sink):
+    """End-to-end: merge + XLA's unique-index word scatter (the update
+    path lookup.py takes) equals the flat bf16 scatter, including the
+    sink-duplicate tail the dedup contract pads with."""
     R, dim = 4096, 128
     t = _table(R, dim, seed=9)
     words = bitpack.pack_rows(t)
     rng = np.random.default_rng(10)
-    ids = jnp.asarray(
-        np.sort(rng.choice(R, size=300, replace=False)).astype(np.int32)
-    )
+    real = np.sort(rng.choice(R - 2, size=300, replace=False))
+    sink = R - 1
+    ids_np = np.concatenate([real, [sink] * 5]) if with_sink else real
+    ids = jnp.asarray(ids_np.astype(np.int32))
     new_rows = jnp.asarray(
-        rng.standard_normal((300, dim)).astype(jnp.bfloat16)
+        rng.standard_normal((len(ids_np), dim)).astype(jnp.bfloat16)
     )
+    if with_sink:
+        # Zero-gradient sink entries write the sink's current value.
+        new_rows = new_rows.at[len(real):].set(t[sink])
     pair, merged = bitpack.merge_updated_rows(
         jax.lax.bitcast_convert_type(
             jnp.take(words, ids >> 1, axis=0), jnp.uint32
@@ -145,8 +149,9 @@ def test_packed_scatter_through_row_kernel_interpret():
         ids,
         new_rows,
     )
-    got_words = scatter_rows(jnp.array(words), pair, merged,
-                             interpret=True)
+    got_words = jax.jit(
+        lambda w, p, m: w.at[p].set(m, unique_indices=True)
+    )(words, pair, merged)
     want = t.at[ids].set(new_rows)
     np.testing.assert_array_equal(
         _u16(bitpack.unpack_rows(got_words)), _u16(want)

@@ -103,7 +103,7 @@ def test_comm_bf16_collectives_in_hlo():
 
     Checked on the pre-optimization HLO: XLA's CPU backend
     float-normalizes bf16 collectives back to f32 at execution (no
-    native bf16 on CPU), while the TPU backend executes them natively —
+    native bf16 on CPU), while accelerator backends execute them natively —
     the wire dtype the program asks for is the contract under test.
     """
     layer, batch = make_layer("bfloat16")

@@ -1,13 +1,11 @@
 """Compiler-level proof that pipelined execution exposes hideable comm.
 
-VERDICT r3 missing #4 / next #5: the one-step-stale pipelined mode
-(training/pipelined.py — parity with the reference's
-`pipeline_execution_with_tensor_core`,
-reference tensorflow/distributed_embedding.py:49-50) is 4% SLOWER on one
-chip (TensorCore kernels serialize); its value is hiding the embedding
-exchange collectives behind dense compute on multi-chip meshes. Real
-multi-chip hardware is unavailable, so this tool extracts the evidence
-from the COMPILED 8-device SPMD program itself:
+The one-step-stale pipelined mode (training/pipelined.py — parity with
+the reference's `pipeline_execution_with_tensor_core`, reference
+tensorflow/distributed_embedding.py:49-50) exists to hide the embedding
+exchange collectives behind dense compute on multi-device meshes. This
+tool extracts the evidence from the COMPILED 8-device SPMD program
+itself:
 
 For every collective instruction in the scheduled post-optimization HLO
 of the pipelined and unpipelined train steps, it computes the

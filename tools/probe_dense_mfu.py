@@ -1,8 +1,8 @@
-"""A/B the dense-stack precision variants on the live chip (VERDICT r2 #8).
+"""A/B the dense-stack precision variants on one device.
 
 Isolates the DLRM dense stack exactly like bench.py's dense-only
 measurement (embedding layer stripped, activations fed as batch data)
-and times three variants under the honest scan protocol:
+and times three variants, steps chained in one jitted scan:
 
   f32_resident  : bf16 matmul operands, f32 activations between fusions
                   (the current default — DLRMConfig.compute_dtype only)
@@ -12,9 +12,9 @@ and times three variants under the honest scan protocol:
 
 Run on two concat widths: the bench mix (4 tables, concat 640) and the
 flagship Criteo mix (26 tables, concat 3456). Prints one JSON line per
-(shape, variant) with ms/step and dense MFU; the winner becomes
-BENCH_DENSE_OUTPUT_DTYPE / DLRMConfig.dense_output_dtype guidance in
-BASELINE.md.
+(shape, variant) with ms/step and dense MFU against the device's
+published bf16 peak (bench.DEVICE_PEAKS; an unlisted device is an
+error).
 
 `--small` runs a tiny CPU-mesh validation (shapes compile, losses of the
 three variants agree to bf16 tolerance) without timing claims.
@@ -127,12 +127,14 @@ def main() -> None:
 
     import jax
 
-    from bench import PEAK_BF16_FLOPS, dense_flops_per_step
+    from bench import dense_flops_per_step, device_peaks
     from examples.ml_perf.configs import CRITEO_MULTI_HOT_SIZES
     from keras_rs_tpu.parallel import mesh as mesh_lib
     from keras_rs_tpu.utils.timing import measure_step_time
 
-    mesh = mesh_lib.create_mesh()
+    device = jax.devices()[0]
+    mesh = mesh_lib.create_mesh([device])
+    peak = None if args.small else device_peaks(device)["bf16_flops_per_s"]
 
     shapes = [
         ("bench_mix", 4, [3, 2, 1, 1]),
@@ -160,10 +162,9 @@ def main() -> None:
                     {
                         "shape": shape_name,
                         "variant": name,
+                        "device": device.device_kind,
                         "dense_ms": round(s_per_step * 1e3, 3),
-                        "mfu_dense": round(
-                            flops / s_per_step / PEAK_BF16_FLOPS, 3
-                        ),
+                        "mfu_dense": round(flops / s_per_step / peak, 3),
                     }
                 ),
                 flush=True,

@@ -1,14 +1,13 @@
 """Flagship-scale microbench of the device-preprocessing primitives.
 
-The flagship DLRM step runs 148.8 ms vs a 49.1 ms descriptor floor
-(BENCH_r04_chip_harvest.json) and the candidate explanations are all
-inside `device_preprocessing.preprocess_stack_device`: the 1.4M-entry
-stable sort, the N-entry glue (wheres/cumsums/fills), and — for a
+Candidates for the device-preprocessing share of the flagship DLRM step
+are all inside `device_preprocessing.preprocess_stack_device`: the
+1.4M-entry stable sort, the N-entry glue (wheres/cumsums/fills), and — for a
 hypothetical sort-free construction-order layout — a vocab-sized
 mark/cumsum/compact dedup. This tool times each primitive AT THE
 FLAGSHIP SHAPE (N = 172 ids/example x 8192 = 1,409,024 entries,
-R_l = 7.03M stacked rows, S_l = 8192 x 9 large-feature segments) under
-the honest two-point scan protocol, plus the full
+R_l = 7.03M stacked rows, S_l = 8192 x 9 large-feature segments), each
+chained in one jitted scan, plus the full
 `preprocess_stack_device` call itself, so the step's preprocess-vs-
 lookup split and the sort-vs-scatter redesign decision are grounded in
 measured numbers rather than attribution guesswork.
@@ -25,7 +24,8 @@ Variants:
   compact_scatter  at[rank].set over N entries  (the D>1 bucket fill)
   segsum_N         segment_sum(gain, seg, S_l)  (divisor / combiner cost)
 
-Run on the live chip: python tools/probe_preproc_ops.py
+Run:  python tools/probe_preproc_ops.py            (on the accelerator)
+      python tools/probe_preproc_ops.py --small    (CPU smoke)
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ from __future__ import annotations
 import json
 import os as _os
 import sys as _sys
-import time
 
 _sys.path.insert(
     0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
@@ -42,6 +41,8 @@ _sys.path.insert(
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from keras_rs_tpu.utils.timing import chained_call_ms  # noqa: E402
 
 B = 8192
 VOCAB_CAP = 1_000_000
@@ -57,43 +58,6 @@ if "--small" in _sys.argv:  # CPU smoke of every code path
     _jax.config.update("jax_platforms", "cpu")
     B = 64
     VOCAB_CAP = 2_000
-
-
-def honest_ms(fn, args, perturb, derive, iters=8):
-    """Two-point scan timing: (T(2k)-T(k))/k; round-trip cancels."""
-
-    def make_run(length):
-        @jax.jit
-        def run(args):
-            def body(tick, _):
-                out = fn(*perturb(args, tick))
-                t2 = derive(out)
-                return t2, t2
-
-            last, _ = jax.lax.scan(
-                body, jnp.zeros((), jnp.float32), None, length=length
-            )
-            return last
-
-        return run
-
-    def timed(run):
-        _ = float(run(args))
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            _ = float(run(args))
-            ts.append(time.perf_counter() - t0)
-        return float(np.median(ts))
-
-    k = iters
-    while True:
-        t_k = timed(make_run(k))
-        t_2k = timed(make_run(2 * k))
-        diff = t_2k - t_k
-        if diff > 0.008 or k >= 512:
-            return max(diff, 1e-9) / k * 1e3
-        k *= 2
 
 
 def flagship_stack():
@@ -136,7 +100,8 @@ def flagship_stack():
 
 
 def main() -> None:
-    print(f"backend: {jax.default_backend()}")
+    d = jax.devices()[0]
+    print(f"device: {d.platform} {d.device_kind} x1")
     out: dict = {}
 
     stack, feats = flagship_stack()
@@ -196,7 +161,7 @@ def main() -> None:
             * 1e-12
         )
 
-    ms = honest_ms(pre_fn, (jinputs,), pre_perturb, pre_derive)
+    ms = chained_call_ms(pre_fn, (jinputs,), pre_perturb, pre_derive)
     print(f"preproc_full          {ms:9.3f} ms")
     out["preproc_full_ms"] = round(ms, 3)
 
@@ -248,7 +213,7 @@ def main() -> None:
             (key0,),
         ),
     ]:
-        ms = honest_ms(fn, args, kperturb, first_f32)
+        ms = chained_call_ms(fn, args, kperturb, first_f32)
         print(f"{name:<20} {ms:9.3f} ms")
         out[f"{name}_ms"] = round(ms, 3)
 
@@ -265,7 +230,7 @@ def main() -> None:
             args[1:]
         )
 
-    ms = honest_ms(marks_fn, (slot0,), slot_perturb, first_f32)
+    ms = chained_call_ms(marks_fn, (slot0,), slot_perturb, first_f32)
     print(f"{'scatter_marks':<20} {ms:9.3f} ms")
     out["scatter_marks_ms"] = round(ms, 3)
 
@@ -274,7 +239,7 @@ def main() -> None:
     def cumsum_fn(m):
         return jnp.cumsum(m)
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         cumsum_fn,
         (marks0,),
         lambda a, t: (a[0] + t.astype(jnp.int32) * 0 + t.astype(jnp.int32),),
@@ -288,7 +253,7 @@ def main() -> None:
     def take_fn(r, slot):
         return jnp.take(r, slot)
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         take_fn,
         (ranks0, slot0),
         lambda a, t: (a[0], (a[1] + t.astype(jnp.int32)) % R_l),
@@ -308,7 +273,7 @@ def main() -> None:
     pos0 = jnp.asarray(
         rng.permutation(N).astype(np.int32)
     )
-    ms = honest_ms(
+    ms = chained_call_ms(
         compact_fn,
         (slot0, pos0),
         lambda a, t: ((a[0] + t.astype(jnp.int32)) % R_l, a[1]),
@@ -321,7 +286,7 @@ def main() -> None:
     def segsum_fn(g, s):
         return jax.ops.segment_sum(g, s, num_segments=S_l)
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         segsum_fn,
         (gain0, seg0),
         lambda a, t: (a[0] + t * 1e-6, a[1]),
@@ -351,7 +316,7 @@ def main() -> None:
     def take_rows_fn(tab, slot):
         return jnp.take(tab, slot, axis=0)
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         take_rows_fn,
         (table0, slot0),
         lambda a, t: (a[0], (a[1] + t.astype(jnp.int32)) % R_l),
@@ -363,7 +328,7 @@ def main() -> None:
     def segsum_rows_fn(r, s):
         return jax.ops.segment_sum(r, s, num_segments=S_l)
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         segsum_rows_fn,
         (rows0, seg_rows),
         lambda a, t: (a[0] + t * 1e-6, a[1]),
@@ -378,7 +343,7 @@ def main() -> None:
             r, s, num_segments=S_l, indices_are_sorted=True
         )
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         segsum_rows_sorted_fn,
         (rows0, seg_rows_sorted),
         lambda a, t: (a[0] + t * 1e-6, a[1]),
@@ -389,16 +354,16 @@ def main() -> None:
     out["segsum_rows_sorted_ms"] = round(ms, 3)
 
     # --- PACKED-state fetch variants (the forward's real choice) ------------
-    # The flagship profile shows the [N, 2, 128] block gather from the
-    # packed [R, 2, 128] state at 17.1 ms (169 GB/s, fetching the slot
-    # rows only to discard them). Candidate: a 2-index lax.gather of
-    # (slot, 0) rows — half the bytes if it runs at the same rate.
+    # The forward's [N, 2, 128] block gather from the packed
+    # [R, 2, 128] state fetches the slot rows only to discard them.
+    # Candidate: a 2-index lax.gather of (slot, 0) rows — half the bytes
+    # if it runs at the same rate.
     packed0 = jnp.zeros((R_l, 2, dim), jnp.float32)
 
     def take_blocks_fn(tab, slot):
         return jnp.take(tab, slot, axis=0)
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         take_blocks_fn,
         (packed0, slot0),
         lambda a, t: (a[0], (a[1] + t.astype(jnp.int32)) % R_l),
@@ -423,7 +388,7 @@ def main() -> None:
             slice_sizes=(1, 1, dim),
         )
 
-    ms = honest_ms(
+    ms = chained_call_ms(
         take_rows2d_fn,
         (packed0, slot0),
         lambda a, t: (a[0], (a[1] + t.astype(jnp.int32)) % R_l),

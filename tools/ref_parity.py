@@ -1,4 +1,4 @@
-"""Reference-parity quality runs (BASELINE.md protocol #1).
+"""Reference-parity quality runs.
 
 The reference's examples commit protocols, not numbers, so "matches the
 reference" needs the reference actually run: its JAX backend runs on
